@@ -1,4 +1,4 @@
-// hqc_core: native HQC-RMRS model for the SCA-LDPC TPU framework.
+// hqc_core: native HQC-RMRS model for the SCA-LDPC JAX framework.
 //
 // Re-implements, from the public HQC specification, the KEM internals that the
 // reference consumes through its liboqs submodule (reference:

@@ -1,7 +1,7 @@
-"""sca-ldpc-tpu: a TPU-native framework for code-based key-recovery side-channel
-attack simulation on post-quantum KEMs (HQC, Kyber).
+"""sca-ldpc-tpu: a JAX framework for code-based key-recovery side-channel
+attack simulation on post-quantum KEMs (HQC, Kyber), run on NVIDIA GPUs.
 
-Re-designed from scratch for TPU (JAX / XLA / Pallas / pjit) with the
+Re-designed from scratch for accelerators (JAX / XLA / sharded jit) with the
 capabilities of the reference CPU/Rust implementation (atneit/SCA-LDPC):
 
 - ``codes``:    LDPC / QC-LDPC parity-check construction with distance-spectrum
@@ -9,7 +9,7 @@ capabilities of the reference CPU/Rust implementation (atneit/SCA-LDPC):
 - ``channels``: measurement-channel / oracle-noise models
                 (reference: simulate/decode.py ErrorsProvider)
 - ``ops``:      batched binary & q-ary belief-propagation / min-sum decoders as
-                vectorized JAX + Pallas TPU kernels (reference: ldpc PyPI
+                vectorized JAX compiled by XLA (reference: ldpc PyPI
                 bp_decoder, simulate_rs/src/decoder.rs, decoder_special.rs)
 - ``sim``:      frame-error-rate Monte-Carlo loops, jitted and batched
                 (reference: simulate/decode.py simulate_frame_error_rate*)

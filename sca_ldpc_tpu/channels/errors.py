@@ -10,7 +10,7 @@ Two sampling paths:
 
 - :meth:`get_error` — scalar host path with the reference's exact RNG draw
   sequence (one ``rng.rand()`` per position), for conformance tests.
-- :meth:`sample_batch` — the TPU path: one ``jax.random`` categorical draw for
+- :meth:`sample_batch` — the device path: one ``jax.random`` categorical draw for
   a whole ``[batch, n]`` error tensor.  This is the reference's per-position
   Python loop (decode.py:166-167) collapsed into a single device op.
 """

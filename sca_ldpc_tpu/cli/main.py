@@ -6,6 +6,7 @@ Usage: python -m sca_ldpc_tpu.cli.main <command> [flags]
 """
 
 import argparse
+import csv
 import logging
 import sys
 from os.path import exists
@@ -22,6 +23,7 @@ from ..codes import (
 from ..sim import simulate_frame_error_rate, simulate_frame_error_rate_qary
 from ..utils import make_random_state
 from ..utils.commands import CommandsBase
+from ..utils.csvio import append_csv_rows
 
 logger = logging.getLogger("main")
 
@@ -72,8 +74,7 @@ class Commands(CommandsBase):
                                  "bucket; 'padded' = same decode at a fixed check "
                                  "capacity, ONE compile shape for the whole attack; "
                                  "'circulant' = full circulant with measured-row "
-                                 "mask, one compile shape per plaintext count "
-                                 "(fastest on TPU)")
+                                 "mask, one compile shape per plaintext count")
         parser.add_argument("--trials", type=int, default=1000,
                             help="hqc_eval_oracle: trials per measurement count")
         parser.add_argument("--reduced-trials", type=int, default=None,
@@ -130,7 +131,7 @@ class Commands(CommandsBase):
         from ..models.hqc import simulate_hqc_idealized_oracle
 
         rng = make_random_state(args.seed)
-        _, tracking = simulate_hqc_idealized_oracle(
+        success, tracking = simulate_hqc_idealized_oracle(
             rng, args.decode_every, args.code_weight, args.key_file,
             args.error_rate, args.param_set,
             max_oracle_calls=args.max_oracle_calls,
@@ -141,8 +142,8 @@ class Commands(CommandsBase):
             timing_calibration_trials=args.timing_calibration_trials,
             timing_chunk_cap=args.chunk_cap,
         )
-        df = tracking.decoder_stats_data_frame(label=args.label)
-        logger.info(f"Stats: \n{df.to_string(index=False)}")
+        rows = tracking.decoder_stats_rows(label=args.label)
+        logger.info("Stats:\n" + "\n".join(str(r) for r in rows))
         channel = getattr(tracking, "timing_channel", None)
         if channel is not None:
             acc_f, acc_s = channel.empirical_accuracy()
@@ -152,9 +153,8 @@ class Commands(CommandsBase):
                 f"accuracy vs ground truth: fail={acc_f} success={acc_s}"
             )
         if args.csv_output:
-            header = not exists(args.csv_output)
-            df.to_csv(args.csv_output, mode="w" if header else "a",
-                      index=False, header=header)
+            tracking.append_stats_csv(args.csv_output, label=args.label)
+        return success, tracking
 
     def command_hqc_eval_oracle(self, args):
         from ..models.hqc.eval_oracle import hqc_eval_oracle
@@ -188,10 +188,9 @@ class Commands(CommandsBase):
 
         measured = None
         if args.csv_output and exists(args.csv_output):
-            import pandas as pd
-
-            df = pd.read_csv(args.csv_output)
-            measured = dict(zip(df["measurements"], df["accuracy"]))
+            with open(args.csv_output, newline="") as f:
+                measured = {int(r["measurements"]): float(r["accuracy"])
+                            for r in csv.DictReader(f)}
         view_hqc_oracle_accuracy(measured=measured)
 
     def command_view_hqc_simulation_csv(self, args):
@@ -264,8 +263,9 @@ class Commands(CommandsBase):
 
         rng = make_random_state(args.seed)
         if getattr(args, "adaptive", False):
+            accuracy = 1.0 - args.error_rate if args.error_rate else 0.995
             results = simulate_kyber_attack_adaptive(
-                rng, accuracy=1.0 - args.error_rate if args.error_rate else 0.995,
+                rng, accuracy=accuracy,
                 sum_weight=6, check_blocks=2, iterations=10, runs=args.runs,
             )
         else:
@@ -281,14 +281,9 @@ class Commands(CommandsBase):
             f"avg correct coefficients {avg:.1f}/{results[0]['total_coefficients']}"
         )
         if args.csv_output:
-            import pandas as pd
-
-            df = pd.DataFrame(results)
-            df["label"] = args.label
-            df["accuracy"] = accuracy
-            header = not exists(args.csv_output)
-            df.to_csv(args.csv_output, mode="w" if header else "a",
-                      index=False, header=header)
+            rows = [{**r, "label": args.label, "accuracy": accuracy} for r in results]
+            append_csv_rows(args.csv_output, rows, rows[0].keys())
+        return results
 
     # -- test runners -------------------------------------------------------
 

@@ -1,9 +1,9 @@
 """Device layouts for sparse parity-check matrices.
 
 The reference stores its Tanner graph in hash maps of edges
-(simulate_rs/src/decoder.rs:403-429) and walks them sequentially.  On TPU we
-need static shapes and vectorized access, so a code is compiled once into one
-of two HBM-resident layouts:
+(simulate_rs/src/decoder.rs:403-429) and walks them sequentially.  On an
+accelerator we need static shapes and vectorized access, so a code is
+compiled once into one of two device-resident layouts:
 
 - :class:`CodeLayout` — general padded adjacency.  Messages live check-major as
   ``[batch, R, DC]`` tensors; variable-side access goes through a precomputed
@@ -15,7 +15,7 @@ of two HBM-resident layouts:
   attack matrix, make_code.py:220-273).  Each nonzero diagonal of the circulant
   is one ``[batch, N]`` message plane; check/variable alignment is a pair of
   ``jnp.roll``s per plane, so the decoder is pure elementwise math with zero
-  gathers — the TPU-native replacement for sparse edge walks.
+  gathers — the batched replacement for sparse edge walks.
 """
 
 from dataclasses import dataclass

@@ -6,7 +6,7 @@ q-ary QC with signed wraparound entries, and random circulants constrained by
 distance spectrum (plus the ``|I``-augmented variant).
 
 Construction is host-side NumPy (it runs once per code); decoding happens on
-TPU via the layouts in :mod:`sca_ldpc_tpu.codes.layout`.  RNG draw sequences
+the accelerator via the layouts in :mod:`sca_ldpc_tpu.codes.layout`.  RNG draw sequences
 match the reference so fixed seeds reproduce its golden matrices.
 """
 

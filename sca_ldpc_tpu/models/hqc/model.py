@@ -11,6 +11,7 @@ reference's #[staticmethod] pyclasses.
 """
 
 import ctypes
+import fcntl
 import os
 import subprocess
 
@@ -29,11 +30,17 @@ def _lib():
     if _LIB is not None:
         return _LIB
     so = _so_path()
-    root = os.path.dirname(os.path.dirname(so))
-    src = os.path.join(root, "csrc", "hqc_core.cpp")
-    stale = os.path.exists(so) and os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(so)
-    if not os.path.exists(so) or stale:
-        subprocess.run(["make", "-C", os.path.join(root, "csrc")], check=True)
+    csrc = os.path.dirname(so)
+    src = os.path.join(csrc, "hqc_core.cpp")
+    # The library is built on this host at first use (it is not tracked:
+    # -march=native binaries do not move between hosts).  Concurrent
+    # processes (test workers) serialize the build on a lock file so none
+    # loads a half-written library.
+    with open(os.path.join(csrc, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        stale = os.path.exists(so) and os.path.getmtime(src) > os.path.getmtime(so)
+        if not os.path.exists(so) or stale:
+            subprocess.run(["make", "-C", csrc], check=True)
     lib = ctypes.CDLL(so)
 
     u8p = ctypes.POINTER(ctypes.c_uint8)

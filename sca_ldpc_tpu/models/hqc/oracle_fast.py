@@ -4,7 +4,7 @@ The attack probes thousands of single-bit ciphertext modifications per
 recovered parity check, each probe asking only "does decoding still succeed?"
 (hqc.py:782-871 drives a full decapsulation per probe through liboqs).
 
-Key observations (TPU-first redesign of the oracle hot loop):
+Key observations (vectorized redesign of the oracle hot loop):
 - With the idealized construction the decoder input is
   ``base = v - u*y`` (native ``decode_intermediates`` exposes it once);
   any probe is that base XOR a sparse flip set.
@@ -17,8 +17,8 @@ Key observations (TPU-first redesign of the oracle hot loop):
 
 A probe therefore costs a 128-element update + argmax (vs a full decaps),
 and candidate batches vectorize: `probe_bits` evaluates C candidates as
-[C, 128] tensor ops (jit-compiled; on TPU the base spectra are one
-[N1, 128] x [128, 128] Hadamard matmul on the MXU).
+[C, 128] NumPy array ops on the host (the base spectra are one
+[N1, 128] x [128, 128] Hadamard matmul).
 
 Exactness: equivalence with the native decode path is enforced by
 tests/test_fast_oracle.py over random flip sets, and the attack can

@@ -11,7 +11,14 @@ found_bad_unsatisfied_checks, success.
 from enum import Enum
 from typing import Tuple
 
-import pandas as pd
+from ...utils.csvio import append_csv_rows
+
+#: Column order of the per-decode statistics CSV.
+STATS_COLUMNS = (
+    "label", "alg", "weight", "epsilon0", "epsilon1", "checks",
+    "oracle_calls", "unsatisfied", "good_flips", "bad_flips",
+    "found_bad_satisfied_checks", "found_bad_unsatisfied_checks", "success",
+)
 
 
 class FlipStatus(Enum):
@@ -107,16 +114,17 @@ class HqcSimulationTracking:
             }
         )
 
-    def decoder_stats_data_frame(self, label=""):
-        static_columns = ["label", "alg", "weight", "epsilon0", "epsilon1"]
-        static_values = [
-            label,
-            self.params.HQC.name(),
-            self.params.WEIGHT,
-            self.params.EPSILON[0],
-            self.params.EPSILON[1],
-        ]
-        df = pd.DataFrame.from_dict(self.decoder_stats)
-        dynamic_columns = list(df.columns)
-        df[static_columns] = static_values
-        return df[static_columns + dynamic_columns]
+    def decoder_stats_rows(self, label=""):
+        """One dict per decode attempt, keyed by :data:`STATS_COLUMNS`."""
+        static = {
+            "label": label,
+            "alg": self.params.HQC.name(),
+            "weight": self.params.WEIGHT,
+            "epsilon0": self.params.EPSILON[0],
+            "epsilon1": self.params.EPSILON[1],
+        }
+        return [{**static, **stats} for stats in self.decoder_stats]
+
+    def append_stats_csv(self, path, label=""):
+        append_csv_rows(path, self.decoder_stats_rows(label), STATS_COLUMNS)
+

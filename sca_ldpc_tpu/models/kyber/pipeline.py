@@ -48,7 +48,7 @@ def get_channel_probabilities(s_distr, ssum_distr, sum_weight, check_blocks):
     return channel, channel_sum
 
 
-def get_decoder(sum_weight, H, check_blocks, iterations, backend="xla"):
+def get_decoder(sum_weight, H, check_blocks, iterations):
     """Decoder for the Kyber attack geometry — the component the reference
     leaves unimplemented (kyber.py:379-435).  Any (sum_weight, check_blocks)
     combination works; shapes are validated against H."""
@@ -60,7 +60,7 @@ def get_decoder(sum_weight, H, check_blocks, iterations, backend="xla"):
     b = ETA
     bsum = sum_weight * ETA
     return QarySpecialDecoder(H, b=b, bsum=bsum, max_iter=iterations,
-                              sw=sum_weight, backend=backend)
+                              sw=sum_weight)
 
 
 def simulate_measurements(s_flat, pattern, accuracy, rng):

@@ -1,6 +1,6 @@
 """Batched binary belief-propagation syndrome decoding.
 
-TPU-native replacement for the reference's CPU ``ldpc.bp_decoder``
+Batched replacement for the reference's CPU ``ldpc.bp_decoder``
 (decode.py:155-171, hqc.py:694-708).  Differences by design:
 
 - The frame dimension is a leading batch axis: one jitted call decodes
@@ -110,8 +110,8 @@ def _bp_decode_syndrome(
         total = prior + jnp.sum(c2v_var, axis=-1)
         # Check-side extrinsic: v2c[r,j] = total[chk_var[r,j]] - c2v[r,j].
         # Same per-edge arithmetic as subtracting variable-side and scattering
-        # back check-major, but with a gather instead of a scatter (TPU
-        # scatters serialize; cf. the q-ary decoder's identical optimization).
+        # back check-major, but with a gather instead of a scatter (cf. the
+        # q-ary decoder's identical optimization).
         total_pad = jnp.concatenate([total, jnp.zeros((b, 1), jnp.float32)], axis=-1)
         tot_chk = jnp.take(total_pad, chk_var.reshape(-1), axis=-1).reshape(b, r, dc)
         v2c_new = jnp.clip(tot_chk - c2v, -_BIG, _BIG)

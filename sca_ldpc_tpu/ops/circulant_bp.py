@@ -1,4 +1,4 @@
-"""Binary BP on circulant codes via rolled message planes — the TPU fast path.
+"""Binary BP on circulant codes via rolled message planes — the fast path.
 
 For ``H = [circulant(c) | I]`` (the HQC attack code family, make_code.py:220-273)
 every nonzero diagonal of the circulant is one ``[batch, N]`` message plane;
@@ -140,8 +140,7 @@ def _multi_circulant_bp(
     and unmeasured rows are made inert by an exactly-zero identity-prior
     LLR (a parity check with one uniform-prior member conveys no extrinsic
     information).  ``shifts`` is DATA, not a static argument: one compile
-    per (N, P, W) serves every circulant of the whole attack or sweep
-    (dynamic rolls measure the same speed as static ones on TPU), and the
+    per (N, P, W) serves every circulant of the whole attack or sweep, and the
     function vmaps over instances for cross-attack batching (vs
     hqc.py:680's per-decode H rebuild).
     """

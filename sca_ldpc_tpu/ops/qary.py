@@ -1,6 +1,6 @@
 """Batched q-ary min-sum LDPC decoding over symbol alphabet [-B..B].
 
-TPU-native equivalent of the reference's Rust ``Decoder`` (decoder.rs:417-724):
+Batched equivalent of the reference's Rust ``Decoder`` (decoder.rs:417-724):
 same message semantics (min-sum LLRs ``ln(max/p)``, extrinsic min over zero-sum
 configurations, arg-min normalization, arg-min hard decision, GF "multiplication"
 by H entries in {-1,+1} as alphabet reversal) — but the per-check configuration
@@ -27,8 +27,7 @@ def _signed(msg, sign):
     return jnp.where(sign[..., None] < 0, msg[..., ::-1], msg)
 
 
-@partial(jax.jit, static_argnames=("max_iter", "b_range", "dc", "backend",
-                                   "early_exit"))
+@partial(jax.jit, static_argnames=("max_iter", "b_range", "dc", "early_exit"))
 def _qary_min_sum(
     chk_var,  # [R, DC] int32, pad == n
     chk_sign,  # [R, DC] int8
@@ -40,7 +39,6 @@ def _qary_min_sum(
     max_iter: int,
     b_range: int,  # B
     dc: int,
-    backend: str = "xla",  # check-update backend: "xla" | "pallas"
     early_exit: bool = False,  # stop when every frame satisfies all checks
 ):
     bt, n, q = channel.shape
@@ -69,14 +67,8 @@ def _qary_min_sum(
     def body(_, state):
         v2c, _total = state
         # --- check update: exact min over zero-sum configs via min-plus convs,
-        # computed only on the consumed +-B output window.  The Pallas backend
-        # runs the identical conv chain VMEM-resident (bitwise-equal output).
-        if backend == "pallas":
-            from .kernels.qary_pallas import chain_exclusive_pallas
-
-            ext = chain_exclusive_pallas(v2c, s_mid, b_range)
-        else:
-            ext = minplus.chain_exclusive(v2c, s_mid, s_out=b_range)
+        # computed only on the consumed +-B output window.
+        ext = minplus.chain_exclusive(v2c, s_mid, s_out=b_range)
         # beta_j[d] = ext_j[-d]: reverse the symbol axis.
         c2v = jnp.minimum(ext[..., ::-1], BIG)
 
@@ -152,16 +144,12 @@ class QaryDecoder:
     """
 
     def __init__(self, H, b_range: int, max_iter: int, dc=None, dv=None,
-                 backend="xla", early_exit=False):
+                 early_exit=False):
         self.layout = CodeLayout.from_h(np.asarray(H), dc=dc, dv=dv)
         self.b = int(b_range)
         self.q = 2 * self.b + 1
         self.max_iter = int(max_iter)
-        self.backend = backend
         self.early_exit = bool(early_exit)
-        if backend == "fused" and self.early_exit:
-            raise ValueError("backend='fused' runs fixed iterations in-kernel")
-        self._fused = None
         lay = self.layout
         self._args = (
             jnp.asarray(lay.chk_var),
@@ -172,37 +160,10 @@ class QaryDecoder:
             jnp.asarray(lay.var_mask),
         )
 
-    def _fused_args(self):
-        """One-hot adjacency arrays for the fully-fused kernel (cached)."""
-        if self._fused is None:
-            lay = self.layout
-            rr, dcw = lay.chk_var.shape
-            n = lay.n
-            gt = np.zeros((dcw, n, rr), np.float32)
-            neg = np.zeros((dcw, 1, rr), np.float32)
-            pad = np.ones((dcw, 1, rr), np.float32)
-            for i in range(rr):
-                for d in range(dcw):
-                    if lay.chk_mask[i, d]:
-                        gt[d, lay.chk_var[i, d], i] = 1.0
-                        neg[d, 0, i] = 1.0 if lay.chk_sign[i, d] < 0 else 0.0
-                        pad[d, 0, i] = 0.0
-            gv = np.ascontiguousarray(np.transpose(gt, (0, 2, 1)))
-            self._fused = tuple(
-                jnp.asarray(a) for a in (gt, gv, neg, pad)
-            )
-        return self._fused
-
     def _decode_llr(self, llr):
-        if self.backend == "fused":
-            from .kernels.qary_pallas import qary_min_sum_fused
-
-            return qary_min_sum_fused(
-                llr, *self._fused_args(), self.b, self.max_iter
-            )
         return _qary_min_sum(
             *self._args, llr, self.max_iter, self.b, self.layout.dc,
-            backend=self.backend, early_exit=self.early_exit,
+            early_exit=self.early_exit,
         )
 
     def min_sum(self, channel_probs):

@@ -1,6 +1,6 @@
 """Two-alphabet q-ary decoder for ``H = [H'|I]`` codes (Kyber pipeline).
 
-TPU-native equivalent of the reference's Rust ``DecoderSpecial``
+Batched equivalent of the reference's Rust ``DecoderSpecial``
 (decoder_special.rs:294-675): the first ``N-R`` columns are secret coefficients
 in ``[-B..B]``; the last ``R`` columns are measured check sums in
 ``[-BSUM..BSUM]`` with ``BSUM = SW*B``.  Each check connects up to ``SW=DC-1``
@@ -28,8 +28,7 @@ from .minplus import BIG
 from .qary import _signed
 
 
-@partial(jax.jit, static_argnames=("max_iter", "b", "bsum", "sw", "backend",
-                                   "early_exit"))
+@partial(jax.jit, static_argnames=("max_iter", "b", "bsum", "sw", "early_exit"))
 def _special_min_sum(
     bvar_idx,  # [R, SW] int32, pad == n_b
     bvar_sign,  # [R, SW] int8
@@ -45,7 +44,6 @@ def _special_min_sum(
     b: int,
     bsum: int,
     sw: int,
-    backend: str = "xla",  # check-update backend: "xla" | "pallas"
     early_exit: bool = False,  # stop when every frame satisfies all checks
 ):
     bt, n_b, bsize = channel.shape
@@ -72,12 +70,7 @@ def _special_min_sum(
     def body(_, state):
         v2c, _tb, _ts = state
         # --- check update.
-        if backend == "pallas":
-            from .kernels.qary_pallas import chain_exclusive_pallas
-
-            ext_b = chain_exclusive_pallas(v2c, s_mid, b, extra=v2c_sum)
-        else:
-            ext_b = minplus.chain_exclusive(v2c, s_mid, extra=v2c_sum, s_out=b)
+        ext_b = minplus.chain_exclusive(v2c, s_mid, extra=v2c_sum, s_out=b)
         c2v_b = jnp.minimum(ext_b[..., ::-1], BIG)  # [Bt, R, SW, BSIZE]
 
         # Full conv of all SW B-messages has support exactly +-BSUM.
@@ -169,18 +162,14 @@ class QarySpecialDecoder:
     """
 
     def __init__(self, H, b: int, bsum: int, max_iter: int, sw=None,
-                 backend="xla", early_exit=False):
+                 early_exit=False):
         H = np.asarray(H)
         r, n = H.shape
         n_b = n - r
         if bsum % b != 0:
             raise ValueError(f"BSUM ({bsum}) must be a multiple of B ({b})")
         self.b, self.bsum, self.max_iter = int(b), int(bsum), int(max_iter)
-        self.backend = backend
         self.early_exit = bool(early_exit)
-        if backend == "fused" and self.early_exit:
-            raise ValueError("backend='fused' runs fixed iterations in-kernel")
-        self._fused = None
         self.n, self.r, self.n_b = n, r, n_b
 
         rows, cols = np.nonzero(H)
@@ -243,57 +232,25 @@ class QarySpecialDecoder:
         """``channel_probs``: [N-R, 2B+1] (or batched); ``channel_probs_sum``:
         [R, 2BSUM+1] (or batched) — probabilities, converted to LLR internally
         (pydecoder.rs:125-145)."""
-        p_b = jnp.asarray(channel_probs, jnp.float32)
-        p_s = jnp.asarray(channel_probs_sum, jnp.float32)
-        squeeze = p_b.ndim == 2
+        return self.min_sum_llr(
+            probs_to_llr(jnp.asarray(channel_probs, jnp.float32)),
+            probs_to_llr(jnp.asarray(channel_probs_sum, jnp.float32)),
+        )
+
+    def min_sum_llr(self, channel_llr, channel_llr_sum):
+        """Decode precomputed min-sum LLRs (inf allowed; clipped internally),
+        shaped like :meth:`min_sum`'s probabilities."""
+        llr_b = jnp.asarray(channel_llr, jnp.float32)
+        llr_s = jnp.asarray(channel_llr_sum, jnp.float32)
+        squeeze = llr_b.ndim == 2
         if squeeze:
-            p_b, p_s = p_b[None], p_s[None]
-        llr_b = minplus.clip_inf(probs_to_llr(p_b))
-        llr_s = minplus.clip_inf(probs_to_llr(p_s))
+            llr_b, llr_s = llr_b[None], llr_s[None]
+        llr_b = minplus.clip_inf(llr_b)
+        llr_s = minplus.clip_inf(llr_s)
         # Order sum-variable channels by serving row.
         llr_s_row = jnp.take(llr_s, jnp.asarray(self._sum_var), axis=1)
-        if self.backend == "fused":
-            from .kernels.qary_pallas import qary_special_min_sum_fused
-
-            gt, gv, neg, pad, sneg = self._fused_args()
-            vsum = _signed(
-                llr_s_row, jnp.asarray(self._args[6], jnp.int32)[None, :]
-            )
-            hard_b, hard_s_row = qary_special_min_sum_fused(
-                llr_b, llr_s_row, vsum, gt, gv, neg, pad, sneg,
-                self.b, self.bsum, self.max_iter,
-            )
-            hard_sum = jnp.take(hard_s_row, jnp.asarray(self._args[7]), axis=1)
-            hard = jnp.concatenate([hard_b, hard_sum], axis=1)
-        else:
-            hard = _special_min_sum(
-                *self._args, llr_b, llr_s_row, self.max_iter, self.b, self.bsum,
-                self.sw, backend=self.backend, early_exit=self.early_exit,
-            )
+        hard = _special_min_sum(
+            *self._args, llr_b, llr_s_row, self.max_iter, self.b, self.bsum,
+            self.sw, early_exit=self.early_exit,
+        )
         return hard[0] if squeeze else hard
-
-    def _fused_args(self):
-        """One-hot adjacency arrays for the fused kernel (cached)."""
-        if self._fused is None:
-            bvar_idx, bvar_sign, bvar_mask = (
-                np.asarray(self._args[0]),
-                np.asarray(self._args[1]),
-                np.asarray(self._args[2]),
-            )
-            sum_sign = np.asarray(self._args[6])
-            r, sw = bvar_idx.shape
-            gt = np.zeros((sw, self.n_b, r), np.float32)
-            neg = np.zeros((sw, 1, r), np.float32)
-            pad = np.ones((sw, 1, r), np.float32)
-            for i in range(r):
-                for d in range(sw):
-                    if bvar_mask[i, d]:
-                        gt[d, bvar_idx[i, d], i] = 1.0
-                        neg[d, 0, i] = 1.0 if bvar_sign[i, d] < 0 else 0.0
-                        pad[d, 0, i] = 0.0
-            gv = np.ascontiguousarray(np.transpose(gt, (0, 2, 1)))
-            sneg = (sum_sign < 0).astype(np.float32).reshape(1, 1, r)
-            self._fused = tuple(
-                jnp.asarray(a) for a in (gt, gv, neg, pad, sneg)
-            )
-        return self._fused

@@ -18,72 +18,56 @@ from ..ops.binary_bp import _bp_decode_syndrome
 from ..ops.circulant_bp import _circulant_bp
 
 
-def make_sharded_fer_step(layout, channel_probs, mesh, max_iter=50, method="product_sum",
-                          backend="xla"):
+def _prior_llr(probs):
+    p = jnp.clip(probs, 1e-30, 1 - 1e-12)
+    return jnp.log((1.0 - p) / p)
+
+
+def sample_frame_errors(key, probs, batch):
+    """The FER step's error draw: ``[batch, len(probs)]`` int32 Bernoulli
+    bits.  Exposed so a check can rebuild the exact frames a step decoded."""
+    return jax.random.bernoulli(key, probs[None, :], (batch, probs.shape[0])).astype(jnp.int32)
+
+
+def circulant_syndrome_decode(layout: CirculantLayout, prior, errors, max_iter, method):
+    """Syndromes of ``errors`` ([B, n_vars]) under ``layout`` and their BP
+    decode with per-position prior LLRs ``prior`` ([n_vars]).
+
+    Returns ``(e_hat [B, n_vars] int32, converged [B], iterations)``.
+    """
+    n = layout.n
+    batch = errors.shape[0]
+    e_c, e_i = errors[:, :n], errors[:, n:]
+    syn = sum(jnp.roll(e_c, k, axis=-1) for k in layout.shifts)
+    if layout.with_identity:
+        syn = syn + e_i
+    syn = syn % 2
+    pc = jnp.broadcast_to(prior[:n], (batch, n))
+    if layout.with_identity:
+        pi = jnp.broadcast_to(prior[n:], (batch, n))
+    else:
+        pi = jnp.zeros((batch, n))
+    return _circulant_bp(pc, pi, syn, layout.shifts, layout.with_identity, max_iter, method)
+
+
+def make_sharded_fer_step(layout, channel_probs, mesh, max_iter=50, method="product_sum"):
     """Build a jitted sharded step: (key, batch) -> (successes, converged, iters).
 
     ``layout``: CodeLayout or CirculantLayout.  ``channel_probs``: [n] error
     probabilities.  The returned callable samples its own errors on device
     from the given key (sharded), so no host->device transfer scales with
-    batch.  ``backend="pallas"`` (circulant layouts, TPU) decodes with the
-    fused VMEM-resident kernel, one instance per device via shard_map.
+    batch.
     """
     probs = jnp.asarray(np.asarray(channel_probs, np.float32))
     batch_sharding = NamedSharding(mesh, P(("data", "model")))
 
-    if backend == "pallas":
-        if not isinstance(layout, CirculantLayout) or not layout.with_identity:
-            raise ValueError("pallas backend requires a [circulant | I] layout")
-        from ..ops.kernels.circulant_pallas import circulant_fer_pallas
-
-        n = layout.n
-        shifts = layout.shifts
-        err = float(np.asarray(channel_probs).ravel()[0])
-        if not np.allclose(np.asarray(channel_probs), err):
-            raise ValueError("pallas FER backend supports uniform error rates")
-        n_dev = mesh.devices.size
-
-        def local_step(key, batch_local):
-            e = jax.random.bernoulli(key[0], probs[None, :], (batch_local, 2 * n)).astype(
-                jnp.int8
-            )
-            ok, conv = circulant_fer_pallas(e, shifts, err, max_iter, tb=8, method=method)
-            return ok, conv
-
-        def step(key, batch):
-            assert batch % (8 * n_dev) == 0, "batch must be divisible by 8 * n_devices"
-            keys = jax.random.split(key, n_dev)
-            sharded = jax.shard_map(
-                lambda k: local_step(k, batch // n_dev),
-                mesh=mesh,
-                in_specs=P(("data", "model")),
-                out_specs=P(("data", "model")),
-                check_vma=False,  # pallas_call out_shapes carry no vma info
-            )
-            ok, conv = sharded(keys)
-            return jnp.sum(ok), jnp.sum(conv), jnp.int32(-1)
-
-        return jax.jit(step, static_argnames=("batch",))
-
     if isinstance(layout, CirculantLayout):
-        n = layout.n
-        n_vars = layout.n_vars
-        shifts = layout.shifts
-        prior = jnp.log((1.0 - jnp.clip(probs, 1e-30, 1 - 1e-12)) / jnp.clip(probs, 1e-30, 1 - 1e-12))
+        prior = _prior_llr(probs)
 
         def step(key, batch):
-            errors = jax.random.bernoulli(key, probs[None, :], (batch, n_vars)).astype(jnp.int32)
+            errors = sample_frame_errors(key, probs, batch)
             errors = jax.lax.with_sharding_constraint(errors, batch_sharding)
-            e_c, e_i = errors[:, :n], errors[:, n:]
-            syn = sum(jnp.roll(e_c, k, axis=-1) for k in shifts)
-            if layout.with_identity:
-                syn = syn + e_i
-            syn = syn % 2
-            pc = jnp.broadcast_to(prior[: n], (batch, n))
-            pi = jnp.broadcast_to(prior[n:], (batch, n)) if layout.with_identity else jnp.zeros((batch, n))
-            e_hat, conv, it = _circulant_bp(
-                pc, pi, syn, shifts, layout.with_identity, max_iter, method
-            )
+            e_hat, conv, it = circulant_syndrome_decode(layout, prior, errors, max_iter, method)
             ok = jnp.all(e_hat == errors, axis=-1)
             return jnp.sum(ok), jnp.sum(conv), it
 
@@ -93,10 +77,10 @@ def make_sharded_fer_step(layout, channel_probs, mesh, max_iter=50, method="prod
         chk_mask = jnp.asarray(lay.chk_mask)
         var_flat = jnp.asarray(lay.var_flat)
         var_mask = jnp.asarray(lay.var_mask)
-        prior = jnp.log((1.0 - jnp.clip(probs, 1e-30, 1 - 1e-12)) / jnp.clip(probs, 1e-30, 1 - 1e-12))
+        prior = _prior_llr(probs)
 
         def step(key, batch):
-            errors = jax.random.bernoulli(key, probs[None, :], (batch, lay.n)).astype(jnp.int32)
+            errors = sample_frame_errors(key, probs, batch)
             errors = jax.lax.with_sharding_constraint(errors, batch_sharding)
             e_pad = jnp.concatenate([errors, jnp.zeros((batch, 1), jnp.int32)], axis=-1)
             bits = jnp.take(e_pad, chk_var.reshape(-1), axis=-1).reshape(batch, lay.r, lay.dc)
@@ -110,14 +94,13 @@ def make_sharded_fer_step(layout, channel_probs, mesh, max_iter=50, method="prod
     return jax.jit(step, static_argnames=("batch",))
 
 
-def sharded_fer_simulation(layout, channel_probs, runs, key, mesh, batch=None, max_iter=50, method="product_sum", backend="xla"):
+def sharded_fer_simulation(layout, channel_probs, runs, key, mesh, batch=None, max_iter=50, method="product_sum"):
     """Run ``runs`` frames in sharded batches; returns (successes, frames)."""
-    n_dev = mesh.devices.size
-    gran = 8 * n_dev if backend == "pallas" else n_dev
+    gran = mesh.devices.size
     if batch is None:
-        batch = min(max(runs, gran), 256 * n_dev)
+        batch = min(max(runs, gran), 256 * gran)
     batch = max(gran, (batch // gran) * gran)
-    step = make_sharded_fer_step(layout, channel_probs, mesh, max_iter, method, backend=backend)
+    step = make_sharded_fer_step(layout, channel_probs, mesh, max_iter, method)
     successes = 0
     done = 0
     while done < runs:

@@ -10,10 +10,10 @@ mesh:
   sweep's per-process runs become one sharded batch axis.
 - ``model``: optional second axis splitting the code dimension N across
   devices; the circulant decoder's rolls across a sharded axis lower to
-  ICI collective-permutes, covering codes too large for one chip's HBM.
+  collective-permutes, covering codes too large for one device's memory.
 
-Works identically on one chip (trivial mesh), a multi-chip host, and a
-multi-host slice via ``jax.distributed.initialize`` (call it before
+Works identically on one device (trivial mesh), a multi-GPU host, and a
+multi-host cluster via ``jax.distributed.initialize`` (call it before
 ``make_mesh`` when running multi-process).
 """
 

@@ -15,7 +15,7 @@ sharded batch dimension inside one SPMD program:
   decode; many independent posterior sets decode in one device program.
 
 Both shard the batch axis over every mesh axis; XLA inserts the collectives
-for the scalar reductions (psum/min/max over ICI).
+for the scalar reductions (psum/min/max across devices).
 """
 
 import numpy as np
@@ -84,8 +84,7 @@ def make_sharded_qary_fer_step(decoder: QaryDecoder, error_rate, mesh,
 
         llr = jnp.where(mask[:, :, None], llr_bad[None, None, :],
                         llr_good[None, None, :])
-        hard = _qary_min_sum(*args, llr, max_iter, b, dc,
-                             backend="xla", early_exit=False)
+        hard = _qary_min_sum(*args, llr, max_iter, b, dc, early_exit=False)
         ok = jnp.all(hard == 0, axis=-1)
         errs = jnp.sum(mask, axis=-1).astype(jnp.int32)
         successes = jnp.sum(ok)

@@ -88,7 +88,6 @@ def simulate_frame_error_rate_qary(
     iterations=5,
     batch_size=None,
     host_sampling=False,
-    backend="xla",
     early_exit=False,
 ):
     """Q-ary FER on the all-zero codeword with good/bad symbol distributions.
@@ -115,7 +114,7 @@ def simulate_frame_error_rate_qary(
     bad[[-1, b_range]] = [1.75 * p_lin, 0.25 * p_lin]
 
     decoder = QaryDecoder(H.astype(np.int8), b_range, iterations,
-                          backend=backend, early_exit=early_exit)
+                          early_exit=early_exit)
 
     batch = int(batch_size or min(runs, 256))
     successes = 0

@@ -46,7 +46,9 @@ def main():
     ap.add_argument("--check-blocks", type=int, default=2)
     ap.add_argument("--iterations", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "default"])
+    ap.add_argument("--platform", default="default", choices=["cpu", "default"],
+                    help="'default': JAX's own choice (the accelerator when "
+                         "there is one); 'cpu' forces the host")
     args = ap.parse_args()
 
     if args.platform == "cpu":

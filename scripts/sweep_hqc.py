@@ -5,11 +5,10 @@ Replaces the reference's shell-level sweep (run-parallel-hqc-simulation.sh:
 one process per (label, weight) config, `wait -n` throttling, per-config log
 files used as resume markers).  Differences by design:
 
-- Configs run sequentially in ONE process: a TPU is single-tenant (and in
-  this environment every Python process claims it), and the attack's decode
-  batches already saturate the chip; host-level parallelism would only
-  contend.  Multi-host scale-out = run one sweep per host with disjoint
-  --labels and merge CSVs.
+- Configs run sequentially in ONE process: a JAX process reserves most of
+  the accelerator's memory, so a second process on the same card fails,
+  and the attack's decode batches already keep the card busy.  Multi-host
+  scale-out = run one sweep per host with disjoint --labels and merge CSVs.
 - Resume markers are per-config .done files; stats append to one CSV
   (same schema as the reference, readable by viz/).
 
@@ -19,6 +18,7 @@ Example (the reference's default sweep, scaled down):
 """
 
 import argparse
+import csv
 import logging
 import os
 import sys
@@ -47,16 +47,13 @@ def main():
                     help="'padded' = checks-only decode at a fixed "
                          "capacity (one compile shape); 'circulant' = "
                          "single-compile-shape masked full-circulant "
-                         "decode; combine either with --platform default "
-                         "to decode on the TPU")
+                         "decode")
     ap.add_argument("--state-dir", default=None,
                     help="resume-marker directory (default: <csv>.state)")
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "default"],
-                    help="JAX platform for the decode batches.  With the "
-                         "'general' decode backend, 'cpu' (default) avoids "
-                         "per-dispatch accelerator latency and per-bucket "
-                         "recompiles; with 'circulant', 'default' (TPU) is "
-                         "fastest.")
+    ap.add_argument("--platform", default="default", choices=["cpu", "default"],
+                    help="JAX platform for the decode batches: 'default' is "
+                         "JAX's own choice (the accelerator when there is "
+                         "one); 'cpu' forces the host")
     ap.add_argument("--batch-size", type=int, default=1,
                     help=">1 runs that many same-weight labels as "
                          "concurrent attack instances with their decodes "
@@ -78,6 +75,7 @@ def main():
         enable_persistent_compilation_cache,
         make_random_state,
     )
+    from sca_ldpc_tpu.utils.csvio import append_csv_rows
 
     enable_persistent_compilation_cache()
 
@@ -91,20 +89,26 @@ def main():
         return os.path.join(state_dir, f"{args.param_set}-{label}-w{weight}.done")
 
     def drop_stale_rows(label, weight):
+        """A crash between CSV append and marker write leaves partial rows;
+        drop them before re-running the config."""
         if not os.path.exists(args.csv):
             return
-        import pandas as pd
-
-        df0 = pd.read_csv(args.csv)
-        mask = (df0["label"].astype(str) == str(label)) & (df0["weight"] == weight)
-        if mask.any():
-            logger.warning(f"dropping {mask.sum()} stale rows for {label} w={weight}")
-            df0[~mask].to_csv(args.csv, index=False)
+        with open(args.csv, newline="") as f:
+            reader = csv.DictReader(f)
+            columns = reader.fieldnames
+            rows = list(reader)
+        keep = [r for r in rows
+                if not (r["label"] == str(label) and int(r["weight"]) == weight)]
+        if len(keep) < len(rows):
+            logger.warning(f"dropping {len(rows) - len(keep)} stale rows for {label} w={weight}")
+            tmp = args.csv + ".tmp"
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            append_csv_rows(tmp, keep, columns)
+            os.replace(tmp, args.csv)
 
     def append_result(label, weight, ok, tracking, wall):
-        df = tracking.decoder_stats_data_frame(label=label)
-        header = not os.path.exists(args.csv)
-        df.to_csv(args.csv, mode="w" if header else "a", index=False, header=header)
+        tracking.append_stats_csv(args.csv, label=label)
         with open(marker_path(label, weight), "w") as f:
             f.write(f"success={ok} wall={wall:.1f}\n")
 
@@ -150,20 +154,10 @@ def main():
         return
 
     for i, (label, weight) in enumerate(configs):
-        marker = os.path.join(state_dir, f"{args.param_set}-{label}-w{weight}.done")
-        if os.path.exists(marker):
+        if os.path.exists(marker_path(label, weight)):
             logger.info(f"[{i+1}/{len(configs)}] {label} w={weight}: done, skipping")
             continue
-        if os.path.exists(args.csv):
-            # a crash between CSV append and marker write leaves partial rows;
-            # drop them before re-running the config
-            import pandas as pd
-
-            df0 = pd.read_csv(args.csv)
-            mask = (df0["label"].astype(str) == str(label)) & (df0["weight"] == weight)
-            if mask.any():
-                logger.warning(f"dropping {mask.sum()} stale rows for {label} w={weight}")
-                df0[~mask].to_csv(args.csv, index=False)
+        drop_stale_rows(label, weight)
         seed = args.seed_base + zlib.crc32(f"{label}-{weight}".encode()) % (2**31)
         t0 = time.time()
         ok, tracking = simulate_hqc_idealized_oracle(
@@ -177,11 +171,7 @@ def main():
             oracle_backend=args.oracle_backend,
             decode_backend=args.decode_backend,
         )
-        df = tracking.decoder_stats_data_frame(label=label)
-        header = not os.path.exists(args.csv)
-        df.to_csv(args.csv, mode="w" if header else "a", index=False, header=header)
-        with open(marker, "w") as f:
-            f.write(f"success={ok} wall={time.time()-t0:.1f}\n")
+        append_result(label, weight, ok, tracking, time.time() - t0)
         logger.info(
             f"[{i+1}/{len(configs)}] {label} w={weight}: success={ok} "
             f"oracle_calls={tracking.num_oracle_calls} wall={time.time()-t0:.1f}s"

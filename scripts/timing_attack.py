@@ -158,10 +158,7 @@ def main():
     print(json.dumps(artifact))
 
     if args.csv:
-        df = tracking.decoder_stats_data_frame(label="timing")
-        header = not os.path.exists(args.csv)
-        df.to_csv(args.csv, mode="w" if header else "a", index=False,
-                  header=header)
+        tracking.append_stats_csv(args.csv, label="timing")
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@
 Round 2 produced ONE measured-timing key recovery
 (artifacts/hqc128_timing_attack.json).  This driver runs a configurable set
 of further recoveries — different seeds, fresh keys, HQC-192, and the
-TPU circulant decode backend — writing one JSON artifact per run plus a
+circulant decode backend on the accelerator — writing one JSON artifact per run plus a
 summary table, to settle:
 
 - repeatability of the end-to-end recovery (success rate, wall, decaps);

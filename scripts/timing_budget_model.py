@@ -71,7 +71,7 @@ def main():
           f"   (rms log-residual {sigma:.3f} -> x/{np.exp(sigma):.2f} band)")
 
     # Measured 192 decision rate: round-4 partial (includes recalibration
-    # overhead and TPU decode rounds; window was degraded, so quiet
+    # overhead and accelerator decode rounds; window was degraded, so quiet
     # windows should run slightly faster).
     p192 = json.load(open("artifacts/timing_stats/timing_192-s6-tpu.json"))
     rate = p192["oracle_decisions"] / p192["wall_seconds"]

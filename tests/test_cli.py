@@ -56,19 +56,20 @@ def test_view_hqc_oracle_accuracy():
 
 
 def test_persistent_compilation_cache_util(tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, the cache uses it and sets no
+    other directory."""
     import jax
 
     from sca_ldpc_tpu.utils import enable_persistent_compilation_cache
 
     prev = jax.config.jax_compilation_cache_dir
+    sentinel = str(tmp_path / "set-by-jax")
     try:
-        d = enable_persistent_compilation_cache(cache_dir=str(tmp_path / "c"))
-        assert d == str(tmp_path / "c")
-        assert jax.config.jax_compilation_cache_dir == d
-        # opt-out env var disables without touching config
-        monkeypatch.setenv("SCA_LDPC_NO_JAX_CACHE", "1")
-        assert enable_persistent_compilation_cache(cache_dir=str(tmp_path / "x")) is None
-        assert jax.config.jax_compilation_cache_dir == d
+        jax.config.update("jax_compilation_cache_dir", sentinel)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+        assert enable_persistent_compilation_cache() == str(tmp_path / "c")
+        assert jax.config.jax_compilation_cache_dir == sentinel
+        assert not os.path.exists(tmp_path / "c")
     finally:
         jax.config.update("jax_compilation_cache_dir", prev)
 
